@@ -1,8 +1,8 @@
-"""mom6_tpu — a TPU-native ocean general circulation model.
+"""mom6_tpu — an ocean general circulation model in JAX.
 
 A brand-new hydrostatic Arakawa C-grid ocean dynamical core with the
-capabilities of GFDL's MOM6 (reference: /root/reference, see SURVEY.md),
-designed from scratch for TPU hardware:
+capabilities of GFDL's MOM6 (see SURVEY.md), designed for accelerators
+driven by XLA (NVIDIA GPUs are the target):
 
 * state is a pytree of dense ``jnp`` arrays of shape ``(..., ny, nx)``;
 * horizontal domain decomposition is GSPMD sharding over a

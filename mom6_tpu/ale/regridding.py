@@ -1,6 +1,6 @@
 """Target-grid generation for the ALE vertical coordinate.
 
-TPU-native analogue of MOM6's regridding (reference:
+Analogue of MOM6's regridding (reference:
 src/ALE/MOM_regridding.F90: regridding_main :133-144; coordinate modes in
 src/ALE/regrid_consts.F90:13-22 and coord_zlike/sigma/rho.F90).
 

@@ -1,6 +1,6 @@
 """Conservative 1-D vertical remapping.
 
-TPU-native re-design of MOM6's remapping core (reference:
+Re-design of MOM6's remapping core for whole-array evaluation (reference:
 src/ALE/MOM_remapping.F90: remapping_core_h :83-86; schemes :107) and the
 reconstruction library (src/ALE/PLM_functions.F90, PPM_functions.F90,
 regrid_edge_values.F90).
@@ -12,8 +12,7 @@ Algorithm (vectorized over whole (nz, ny, nx) columns, no per-cell loops):
 2. evaluate the cumulative integral of the reconstruction at every
    target interface as a GATHER-FREE sum over source cells (each cell's
    antiderivative clipped at its own boundaries; see
-   remap_columns_multi — on TPU a gather lowers to serialized
-   dynamic-slices, so the dense O(nz^2) clip-sum wins by ~20x);
+   remap_columns_multi);
 3. difference and divide by target thicknesses.
 
 This is exactly conservative by construction: the integral over the whole
@@ -358,17 +357,16 @@ def remap_column(u0, h0, h1, scheme: str = PPM_H4):
 def remap_columns_multi(fields, h0, h1, scheme: str = PPM_H4):
     """Remap several fields (nf, nz0, ...) sharing one column geometry.
 
-    TPU-native evaluation: the cumulative integral at every target
-    interface is the GATHER-FREE sum over source cells
+    The cumulative integral at every target interface is the
+    GATHER-FREE sum over source cells
 
         I(z) = sum_k h_k * P_k( clip((z - z0_k)/h_k, 0, 1) )
 
     (each cell's antiderivative clipped at its own boundaries), realized
     as a lax.scan over the nz0 source cells with the per-cell position
-    fraction computed ONCE and reused by every field.  This replaces the
-    earlier take_along_axis formulation: on TPU a gather lowers to
-    serialized dynamic-slices, and seven of them per remap made ALE ~80%
-    of the full-physics step; the scan is pure fused VPU arithmetic."""
+    fraction computed ONCE and reused by every field: O(nz^2) fused
+    elementwise work and no gather.  A gather-based O(nz) evaluation is
+    the alternative at large nz."""
     nf = fields.shape[0]
     recon = [reconstruct(fields[i], h0, scheme) for i in range(nf)]
     # antiderivative form: P(xi) = xi*(b0 + xi*(b1 + xi*(b2 + ...)));
@@ -382,22 +380,6 @@ def remap_columns_multi(fields, h0, h1, scheme: str = PPM_H4):
 
     col_min = jnp.min(fields, axis=1)
     col_max = jnp.max(fields, axis=1)
-
-    # dispatch keyed on the DEFAULT backend: inside a trace there is no
-    # portable oracle for the eventual execution device, so code that
-    # explicitly pins a jit to CPU on a TPU host must disable the fast
-    # path via MOM6_TPU_NO_PALLAS=1 (the test suite runs under
-    # JAX_PLATFORMS=cpu, where the dispatch is automatically consistent)
-    import os
-    backend = jax.default_backend()
-    use_pallas = (backend == "tpu" and fields.ndim == 4
-                  and not os.environ.get("MOM6_TPU_NO_PALLAS"))
-    if use_pallas:
-        # column-resident pallas kernel: O(nz) HBM traffic instead of
-        # the scan's O(nz^2) accumulator re-reads (see remap_pallas.py)
-        from mom6_tpu.ale.remap_pallas import remap_columns_pallas
-        return remap_columns_pallas(coef_f, h0, h1, col_min, col_max,
-                                    npoly=npoly)
 
     coef = jnp.moveaxis(coef_f, 2, 0)        # (nz0, nf, npoly, ny, nx)
     if npoly < 5:

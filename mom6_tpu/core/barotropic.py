@@ -1,6 +1,6 @@
 """Split-explicit barotropic solver.
 
-TPU-native re-design of MOM6's btstep (reference:
+Re-design of MOM6's btstep (reference:
 src/core/MOM_barotropic.F90: btstep :455, btstep_timeloop :2175,
 btloop_eta_predictor :2956, btloop_find_PF :3063, btloop_update_u/v
 :3209/:3306, btstep_layer_accel :3432, set_dtbt :3509).

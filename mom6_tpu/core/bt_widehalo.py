@@ -8,7 +8,7 @@ the march-inward valid-range bookkeeping at :2505-2520).  Under GSPMD,
 XLA instead inserts a CollectivePermute per shifted operand per substep
 — at pod scale that is nstep x ~8 collective rounds per baroclinic step
 of a few-microsecond kernel each, and latency dominates.  This module
-is the tpu-native equivalent of the reference's scheme:
+is the shard_map equivalent of the reference's scheme:
 
 * every 2-D field the substep body reads is padded with a ``W``-cell
   rim and filled from its mesh neighbors with ``jax.lax.ppermute``
@@ -41,16 +41,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
-
-try:                                    # jax >= 0.7 moved shard_map
-    from jax import shard_map
-    def _shard_map(f, mesh, in_specs, out_specs):
-        return shard_map(f, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs)
-except ImportError:                     # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _sm
-    def _shard_map(f, mesh, in_specs, out_specs):
-        return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
 
 from mom6_tpu.core.barotropic import (BTFields, _acc_add, _acc_zero,
                                       _make_half_step, local_kit)
@@ -300,8 +290,8 @@ def run_subcycle_widehalo(F: BTFields, consts: dict, evolve0, wt_trans,
         wt_vel[:n_blocks * E].reshape(n_blocks, E))
     wts_rem = (wt_trans[n_blocks * E:], wt_vel[n_blocks * E:])
 
-    fn = _shard_map(
-        shard_fn, mesh,
+    fn = jax.shard_map(
+        shard_fn, mesh=mesh,
         in_specs=(f_specs, e_specs, (P(), P()), (P(), P())),
         out_specs=acc_spec)
     return fn(F, evolve0, wts_blocks, wts_rem)

@@ -1,12 +1,12 @@
 """Finite-volume thickness transport with PPM reconstruction.
 
-TPU-native re-design of MOM6's continuity solver (reference:
+Re-design of MOM6's continuity solver (reference:
 src/core/MOM_continuity_PPM.F90: continuity_PPM :86, zonal_mass_flux :519,
 zonal_flux_adjust :1093, PPM_reconstruction_x :2307, PPM_limit_pos :2578).
 
 Design differences from the Fortran:
 * fully vectorized over (nz, ny, nx) with ``jnp.where`` replacing the
-  sign-of-u branches — one fused elementwise kernel per sweep on the VPU;
+  sign-of-u branches — one fused elementwise kernel per sweep;
 * the per-face Newton iteration that adjusts layer fluxes to match a target
   barotropic transport (``zonal_flux_adjust``) runs a *fixed* number of
   iterations (jit-friendly; MOM6 iterates to tolerance);
@@ -31,10 +31,10 @@ __all__ = ["continuity_ppm", "zonal_mass_flux", "meridional_mass_flux",
            "BTCont", "set_bt_cont", "find_uhbt", "find_vhbt"]
 
 # Fixed Newton iterations for the barotropic flux adjustment.  Measured
-# on the global_half_deg state with a realistic barotropic perturbation
-# (tools/profile_r5 probe): rel err 1.2e-1 after 1, 4.2e-4 after 2,
-# 4.2e-7 (f32 roundoff, identical through n=6) after 3 — each extra
-# iteration re-evaluates the full PPM flux, ~17% of the dyn step at 5.
+# on the global_half_deg state with a realistic barotropic perturbation:
+# rel err 1.2e-1 after 1, 4.2e-4 after 2, 4.2e-7 (f32 roundoff, identical
+# through n=6) after 3 — each extra iteration re-evaluates the full PPM
+# flux.
 _N_NEWTON = 3
 
 
@@ -95,9 +95,7 @@ def _recon_core(h, mask_t, h_min, monotonic, simple_2nd,
     """PPM edge reconstruction with the sweep-direction shifts abstracted
     into callables: ``m1_fn``/``p1_fn`` shift toward the minus/plus
     neighbor, ``p1_slp_fn`` is the plus-shift for the SLOPE field (which
-    is y-antisymmetric across a tripolar fold, hence a separate kind).
-    Shared verbatim by the XLA path (global roll shifts) and the Pallas
-    kernels (block-local shifts) so the two paths cannot drift."""
+    is y-antisymmetric across a tripolar fold, hence a separate kind)."""
     hm, hp = m1_fn(h), p1_fn(h)
     mm, mp = m1_fn(mask_t), p1_fn(mask_t)
     if simple_2nd:
@@ -161,21 +159,10 @@ def _flux_eval_core(w, pre):
     return face * w * h_avg, face * h_marg
 
 
-def _pass_core(w, h, mask, face, d_p, d_m, h_min, monotonic, simple_2nd,
-               m1_fn, p1_fn, p1_slp_fn, p1_pair_fn):
-    """One full directional pass (reconstruction + flux) through shift
-    callables — the single source of truth executed by BOTH the XLA path
-    and the Pallas kernel bodies (pallas_continuity.py)."""
-    h_L, h_R = _recon_core(h, mask, h_min, monotonic, simple_2nd,
-                           m1_fn, p1_fn, p1_slp_fn)
-    pre = _flux_pre_core(h, h_L, h_R, face, d_p, d_m, p1_fn, p1_pair_fn)
-    return _flux_eval_core(w, pre)
-
-
 def _zonal_flux_prep(h, h_W, h_E, dt, G, por=None):
     """u-independent pieces of the zonal PPM flux, hoisted out of the
-    Newton flux-adjust loop (each iteration otherwise re-rolls the
-    reconstruction arrays — ~40% of the matched-continuity cost)."""
+    Newton flux-adjust loop (each iteration would otherwise re-roll the
+    reconstruction arrays)."""
     face = G.dyCu * G.mask2dCu
     if por is not None:
         face = face * por
@@ -226,29 +213,13 @@ def zonal_mass_flux(u, h, dt, G, *, uhbt: Optional[jnp.ndarray] = None,
     ``return_cor`` appends the 2-D barotropic velocity correction ``du``
     (u_adj = u + du * visc_rem; the du_cor argument of the reference's
     continuity), needed by the RK2b scheme's u_av/u_inst bookkeeping."""
-    from mom6_tpu.core.pallas_continuity import use_pallas_continuity
-    if (u.ndim == 3 and u.shape[-2] >= 8 and u.shape[-1] >= 8
-            and use_pallas_continuity(u, h, visc_rem)):
-        from mom6_tpu.core.pallas_continuity import zonal_flux_pallas
-        face = G.dyCu * G.mask2dCu
-        if por is not None:
-            face = face * por
-        d_p, d_m = dt * G.IdxT, dt * ip1(G.IdxT)
-        uh, duhdu = zonal_flux_pallas(u, h, G.mask2dT, face, d_p, d_m,
-                                      h_min, monotonic, simple_2nd)
+    h_W, h_E = ppm_reconstruction_x(h, G.mask2dT, h_min, monotonic,
+                                    simple_2nd)
+    pre = _zonal_flux_prep(h, h_W, h_E, dt, G, por)
+    uh, duhdu = _zonal_flux_eval(u, pre)
 
-        def eval_at(du, rem):
-            return zonal_flux_pallas(u, h, G.mask2dT, face, d_p, d_m,
-                                     h_min, monotonic, simple_2nd,
-                                     rem=rem, dw=du)
-    else:
-        h_W, h_E = ppm_reconstruction_x(h, G.mask2dT, h_min, monotonic,
-                                        simple_2nd)
-        pre = _zonal_flux_prep(h, h_W, h_E, dt, G, por)
-        uh, duhdu = _zonal_flux_eval(u, pre)
-
-        def eval_at(du, rem):
-            return _zonal_flux_eval(u + du * rem, pre)
+    def eval_at(du, rem):
+        return _zonal_flux_eval(u + du * rem, pre)
     if uhbt is None:
         if return_cor:
             return uh, u, jnp.zeros(u.shape[1:], u.dtype)
@@ -286,34 +257,13 @@ def meridional_mass_flux(v, h, dt, G, *, vhbt: Optional[jnp.ndarray] = None,
                          monotonic=False, simple_2nd=False, h_min=1e-10,
                          por=None, return_cor: bool = False):
     fold = getattr(G, "fold_north", False)
-    from mom6_tpu.core.pallas_continuity import use_pallas_continuity
-    if (v.ndim == 3 and v.shape[-2] >= 8 and v.shape[-1] >= 8
-            and use_pallas_continuity(v, h, visc_rem)):
-        from mom6_tpu.core.pallas_continuity import (merid_flux_pallas,
-                                                     merid_ghosts)
-        face = G.dxCv * G.mask2dCv
-        if por is not None:
-            face = face * por
-        kh = "h" if fold else None
-        d_p, d_m = dt * G.IdyT, dt * jp1(G.IdyT, kh)
-        ghosts = merid_ghosts(h, G.mask2dT, h_min, monotonic,
-                              simple_2nd, fold)
-        vh, dvhdv = merid_flux_pallas(v, h, G.mask2dT, face, d_p, d_m,
-                                      h_min, monotonic, simple_2nd,
-                                      fold, ghosts=ghosts)
+    h_S, h_N = ppm_reconstruction_y(h, G.mask2dT, h_min, monotonic,
+                                    simple_2nd, fold=fold)
+    pre = _merid_flux_prep(h, h_S, h_N, dt, G, por, fold)
+    vh, dvhdv = _merid_flux_eval(v, pre)
 
-        def eval_at(dv, rem):
-            return merid_flux_pallas(v, h, G.mask2dT, face, d_p, d_m,
-                                     h_min, monotonic, simple_2nd, fold,
-                                     rem=rem, dw=dv, ghosts=ghosts)
-    else:
-        h_S, h_N = ppm_reconstruction_y(h, G.mask2dT, h_min, monotonic,
-                                        simple_2nd, fold=fold)
-        pre = _merid_flux_prep(h, h_S, h_N, dt, G, por, fold)
-        vh, dvhdv = _merid_flux_eval(v, pre)
-
-        def eval_at(dv, rem):
-            return _merid_flux_eval(v + dv * rem, pre)
+    def eval_at(dv, rem):
+        return _merid_flux_eval(v + dv * rem, pre)
     if vhbt is None:
         if return_cor:
             return vh, v, jnp.zeros(v.shape[1:], v.dtype)

@@ -1,6 +1,6 @@
 """Coriolis and kinetic-energy-gradient accelerations.
 
-TPU-native re-design of MOM6's CorAdCalc (reference:
+Re-design of MOM6's CorAdCalc (reference:
 src/core/MOM_CoriolisAdv.F90:125; scheme flags :34-44): computes the
 vortex-force form of momentum advection,
 

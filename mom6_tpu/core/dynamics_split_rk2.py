@@ -1,6 +1,6 @@
 """Split barotropic/baroclinic RK2 time stepping.
 
-TPU-native re-design of MOM6's step_MOM_dyn_split_RK2 (reference:
+Re-design of MOM6's step_MOM_dyn_split_RK2 (reference:
 src/core/MOM_dynamics_split_RK2.F90:294; call sequence documented in
 SURVEY.md §3.3).  The whole step — predictor, barotropic subcycles,
 corrector, implicit viscosity, continuity — is one pure jittable function

@@ -1,6 +1,6 @@
 """Open boundary conditions.
 
-TPU-native re-design of MOM6's segment OBC system (reference:
+Re-design of MOM6's segment OBC system (reference:
 src/core/MOM_open_boundary.F90:41-60, 490: OBC_SEGMENT_xxx strings;
 radiation_open_bdry_conds :2486-2545 for the Orlanski/oblique update,
 Flather, gradient, nudging, tracer reservoirs).

@@ -3,7 +3,7 @@
 The reference registers ~1200 fields across its modules
 (src/framework/MOM_diag_mediator.F90:45-66 register_diag_field call
 sites; src/core/MOM.F90 / MOM_diagnostics.F90 / the physics modules'
-register sections).  This module is the tpu-native equivalent: a single
+register sections).  This module is the equivalent here: a single
 declarative table mapping every servable field name — native names and
 their CMOR aliases (thetao/so/volcello/zos/umo/vmo/tauuo/...) — to a
 compute rule over the model state, so a diag_table written for the

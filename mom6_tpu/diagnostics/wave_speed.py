@@ -5,7 +5,7 @@ Analogue of MOM6's MOM_wave_speed.F90 (per-column eigen-solve):
 * :func:`wave_speed` — the discrete vertical-mode eigenproblem
   ``M w = -(N^2 dz / c^2) w`` (w at interior interfaces, w=0 at
   top/bottom) solved by batched INVERSE ITERATION: each iteration is one
-  tridiagonal solve over all columns at once (the TPU-native replacement
+  tridiagonal solve over all columns at once (the whole-array replacement
   for the reference's per-column Sturm-sequence root finder,
   MOM_wave_speed.F90:120-749);
 * :func:`wave_speeds` — the N lowest modes + vertical structures via

@@ -30,7 +30,7 @@ def make_stepper(G, GV, params: DynParams, forces: MechForcing,
     def many_steps(state):
         def body(s, _):
             return step_dynamics_split_rk2(s, forces, G, GV, params), None
-        # modest unroll lets XLA fuse across adjacent steps (~10% on TPU)
+        # modest unroll lets XLA fuse across adjacent steps
         state, _ = jax.lax.scan(body, state, None, length=steps_per_call,
                                 unroll=min(4, steps_per_call))
         return state
@@ -157,6 +157,8 @@ def main(argv=None):
                     "MOM.F90 step_offline:1983)")
     args = ap.parse_args(argv)
 
+    from mom6_tpu.framework.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import os
     paths = [os.path.join(args.rundir, "MOM_input")]
     ov = os.path.join(args.rundir, "MOM_override")
@@ -165,8 +167,7 @@ def main(argv=None):
     pf = ParamFile(paths)
     # DOUBLE_PRECISION: run the whole model in float64 — the reference's
     # native precision, for machine-precision ocean.stats verification
-    # against it (SURVEY.md §4).  Intended for CPU verification runs;
-    # TPU hardware has no native f64 path.
+    # against it (SURVEY.md §4).
     dtype = jnp.float32
     if pf.get("DOUBLE_PRECISION", bool, default=False, module="MOM",
               desc="Integrate in float64 (CPU verification mode)"):
@@ -473,7 +474,8 @@ def main(argv=None):
             h_pre = np.asarray(jax.device_get(state.h))
             uhtr_pre = np.asarray(jax.device_get(state.uhtr))
             vhtr_pre = np.asarray(jax.device_get(state.vhtr))
-        with timer("ocean dynamics+thermo"):
+        with timer("ocean dynamics+thermo") as t_step:
+            t_step_before = t_step.seconds
             if provider is None:
                 state = stepper(state)
             else:
@@ -549,6 +551,9 @@ def main(argv=None):
                     G, names=params.tfc.registry.names))
             writer.write(step, tdays, s)
         print(format_stats_line(step, tdays, s))
+        # the first segment's time includes compiling the stepper
+        print(f"segment {c + 1}: {stats_every} cycles stepped in "
+              f"{t_step.seconds - t_step_before:.4f} s")
         with timer("diag mediator"):
             if use_table:
                 f_now = provider(t_mid) if provider is not None else forcing

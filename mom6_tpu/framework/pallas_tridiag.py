@@ -1,22 +1,20 @@
-"""Pallas TPU kernel for the batched tridiagonal (Thomas) solver.
+"""Batched tridiagonal (Thomas) solve as one GPU kernel (Pallas, Triton route).
 
-The column solves (vertical viscosity, diabatic/JHL diffusion, ALE edge
-values, wave-speed inverse iteration) are the one place the model's
-``lax.scan`` over k produces long chains of small elementwise kernels:
-the scan form re-reads the (ny, nx) plane from HBM ~5x per k level.
-This kernel runs the whole Thomas recursion inside one Pallas program
-per column block, with k as an in-VMEM loop: one HBM read of each
-input and one write of the output — speed-of-light for the op.
+The scan form (``framework.solvers._tridiag_scan``) compiles to two while
+loops over k on the GPU: about 2·nz small launches per solve, each
+streaming a whole (ny, nx) plane.  This kernel runs the whole recursion
+in one launch:
 
-Layout: the wrapper flattens all batch dims to (nz, M, 128) (lane dim
-128, padding M only — <= 1.5% waste for model-sized planes) and picks
-the sublane block so ~7 VMEM-resident (nz, BM, 128) buffers stay under
-the ~16 MB VMEM budget.  Measured on a v5e (tools/profile_r5.py):
-4.07x over the scan at (75, 270, 360); the round-4 (8, 128)-tile
-version was DMA/latency-bound at ~1x for nz <= 33.
+* the batch is flattened to (nz, N) columns;
+* one program per power-of-two block of columns, k looped inside it with
+  masked loads and stores (no padding copy of the operands);
+* cp and dp are carried in registers on the way down and written once to
+  an output pair (cp, x) that the back-substitution reads again while it
+  is still in L2.
 
-On non-TPU backends callers fall back to the scan implementation in
-framework/solvers.py (which owns the dispatch).
+It performs the scan's operations in the scan's order, so the two agree
+to rounding (bitwise where the compiler contracts multiply-adds alike).
+``framework.solvers.tridiag_solve`` owns the choice between them.
 """
 
 from __future__ import annotations
@@ -25,94 +23,102 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["tridiag_solve_pallas"]
+__all__ = ["tridiag_solve_kernel"]
 
-_LANE = 128
-_VMEM_BUDGET = 8 * 1024 * 1024      # bytes; ~half of a v5e's VMEM
+_BLOCK = 256          # columns per program (power of two)
 
 
-def _thomas_kernel(a_ref, b_ref, c_ref, d_ref, x_ref, cp_ref):
-    import jax.lax as lax
-    nz = a_ref.shape[0]
+def _thomas_kernel(a_ref, b_ref, c_ref, d_ref, x_ref, cp_ref, *, block):
+    nz, n = d_ref.shape
+    start = pl.program_id(0) * block
+    cols = pl.ds(start, block)
+    mask = start + jnp.arange(block) < n
 
-    inv0 = 1.0 / b_ref[0]
-    cp_ref[0] = c_ref[0] * inv0
-    x_ref[0] = d_ref[0] * inv0        # x doubles as dp storage
+    def load(ref, k, other=0.0):
+        return plgpu.load(ref.at[k, cols], mask=mask, other=other)
 
-    def fwd(k, _):
-        denom = b_ref[k] - a_ref[k] * cp_ref[k - 1]
-        inv = 1.0 / denom
-        cp_ref[k] = c_ref[k] * inv
-        x_ref[k] = (d_ref[k] - a_ref[k] * x_ref[k - 1]) * inv
-        return 0
+    def store(ref, k, val):
+        plgpu.store(ref.at[k, cols], val, mask=mask)
 
-    lax.fori_loop(1, nz, fwd, 0)
+    def fwd(k, carry):
+        cp_prev, dp_prev = carry
+        a_k = load(a_ref, k)
+        inv = 1.0 / (load(b_ref, k, other=1.0) - a_k * cp_prev)
+        cp = load(c_ref, k) * inv
+        dp = (load(d_ref, k) - a_k * dp_prev) * inv
+        store(cp_ref, k, cp)
+        store(x_ref, k, dp)                 # x holds dp until the sweep back
+        return cp, dp
 
-    def bwd(i, _):
+    zeros = jnp.zeros((block,), d_ref.dtype)
+    _, x_last = jax.lax.fori_loop(0, nz, fwd, (zeros, zeros))
+
+    def bwd(i, x_next):
         k = nz - 2 - i
-        x_ref[k] = x_ref[k] - cp_ref[k] * x_ref[k + 1]
-        return 0
+        x = load(x_ref, k) - load(cp_ref, k) * x_next
+        store(x_ref, k, x)
+        return x
 
-    lax.fori_loop(0, nz - 1, bwd, 0)
+    jax.lax.fori_loop(0, nz - 1, bwd, x_last)
 
 
-@functools.partial(jax.jit, static_argnames=("bm",))
-def _pallas_call_flat(a, b, c, d, bm):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    nz, m, _ = a.shape
-    spec = pl.BlockSpec((nz, bm, _LANE), lambda i: (0, i, 0),
-                        memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _thomas_kernel,
-        out_shape=jax.ShapeDtypeStruct(a.shape, a.dtype),
-        grid=(m // bm,),
-        in_specs=[spec, spec, spec, spec],
-        out_specs=spec,
-        scratch_shapes=[pltpu.VMEM((nz, bm, _LANE), a.dtype)],
+def _solve_flat(a, b, c, d, interpret):
+    """The kernel on (nz, N) operands of one shape."""
+    n = d.shape[1]
+    block = min(_BLOCK, pl.next_power_of_2(n))
+    anywhere = pl.BlockSpec(memory_space=pl.ANY)
+    x, _ = pl.pallas_call(
+        functools.partial(_thomas_kernel, block=block),
+        out_shape=[jax.ShapeDtypeStruct(d.shape, d.dtype)] * 2,
+        grid=(pl.cdiv(n, block),),
+        in_specs=[anywhere] * 4,
+        out_specs=[anywhere] * 2,
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        backend="triton",
+        interpret=interpret,
+        name="tridiag_thomas",
     )(a, b, c, d)
+    return x
 
 
-def tridiag_solve_pallas(a, b, c, d):
-    """Thomas solve along axis 0 on TPU via Pallas.
-
-    Same semantics as framework.solvers.tridiag_solve (a/b/c may
-    broadcast against d); any batch shape — trailing dims are flattened
-    to the (M, 128) lane layout internally."""
+def _solve_nd(a, b, c, d, interpret):
     nz = d.shape[0]
-    batch = d.shape[1:]
-    ab, bb, cb = (jnp.broadcast_to(x, d.shape) for x in (a, b, c))
-
-    n = 1
-    for s in batch:
-        n *= s
-    m = -(-n // _LANE)                              # ceil
-    # sublane block: fit 6 in+out+scratch (nz, BM, 128) f32 buffers in
-    # the VMEM budget, multiple of 8
-    bm_max = max(8, (_VMEM_BUDGET // (6 * nz * _LANE * 4)) // 8 * 8)
-    bm = min(bm_max, -(-m // 8) * 8)
-    m_pad = -(-m // bm) * bm
-    pad = m_pad * _LANE - n
-
-    def prep(x, diag=False):
-        flat = x.reshape(nz, -1)
-        # identity rows (b=1, a=c=d=0) keep the padded recursion finite
-        flat = jnp.pad(flat, ((0, 0), (0, pad)),
-                       constant_values=1.0 if diag else 0.0)
-        return flat.reshape(nz, m_pad, _LANE)
-
-    out = _pallas_call_flat(prep(ab), prep(bb, diag=True), prep(cb),
-                            prep(d), bm)
-    return out.reshape(nz, -1)[:, :n].reshape(d.shape)
+    flat = (v.reshape(nz, -1) for v in (a, b, c, d))
+    return _solve_flat(*flat, interpret).reshape(d.shape)
 
 
-def tridiag_solve_opt(a, b, c, d):
-    """Back-compat dispatcher: Pallas on TPU, scan elsewhere (the
-    production dispatch now lives in framework.solvers.tridiag_solve)."""
-    if jax.default_backend() != "tpu" or d.ndim < 2:
-        from mom6_tpu.framework.solvers import _tridiag_scan
-        return _tridiag_scan(a, b, c, d)
-    return tridiag_solve_pallas(a, b, c, d)
+@functools.cache
+def _solver(interpret: bool):
+    """The kernel on (nz, ...) operands of one shape, batchable by vmap."""
 
+    @jax.custom_batching.custom_vmap
+    def solve(a, b, c, d):
+        return _solve_nd(a, b, c, d, interpret)
+
+    @solve.def_vmap
+    def _(axis_size, in_batched, a, b, c, d):
+        # a vmapped axis is one more batch of columns: put it behind k
+        def behind_k(v, batched):
+            if batched:
+                return jnp.moveaxis(v, 0, 1)
+            return jnp.broadcast_to(v[:, None],
+                                    (v.shape[0], axis_size) + v.shape[1:])
+        x = solve(*map(behind_k, (a, b, c, d), in_batched))
+        return jnp.moveaxis(x, 1, 0), True
+
+    return solve
+
+
+def tridiag_solve_kernel(a, b, c, d, *, interpret: bool = False):
+    """Thomas solve along axis 0 with the GPU kernel.
+
+    Same semantics as ``framework.solvers.tridiag_solve``: a/b/c may
+    broadcast against d, and any batch shape (nz, ...) is accepted.
+    ``interpret=True`` runs the kernel through the Pallas interpreter
+    (the CPU tests); it is never a fallback."""
+    a, b, c = (jnp.broadcast_to(v, d.shape).astype(d.dtype)
+               for v in (a, b, c))
+    return _solver(interpret)(a, b, c, d)

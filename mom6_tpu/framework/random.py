@@ -3,7 +3,7 @@
 The reference (src/framework/MOM_random.F90) keeps one Mersenne-twister
 stream per grid cell, seeded from a hash of the model date, a
 user seed, and the cell's GLOBAL index — so fields are reproducible and
-independent of the domain decomposition.  The TPU-native equivalent is
+independent of the domain decomposition.  The equivalent here is
 a counter-based stateless PRNG: JAX's threefry keyed by
 (user seed, date hash, stream name) with the cell's position as the
 counter.  A jitted ``random_2d_*`` call produces one global array whose

@@ -5,7 +5,7 @@ The reference's debugging stack initializes fresh allocations to NaN
 so an uninitialized read or an exploding term is caught at the step it
 happens with the field named.  Under JAX the first half is moot — arrays
 are produced whole by pure functions, there are no uninitialized reads —
-so the TPU-native sanitizer is the second half made cheap: a per-segment
+so the sanitizer here is the second half made cheap: a per-segment
 sweep of the whole state pytree that counts non-finite values per field
 (wet cells separated from land, where guarded divisions may legitimately
 produce junk that the masks then zero), names the offending fields, and

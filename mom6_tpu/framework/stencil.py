@@ -12,8 +12,9 @@ This is the MOM6 "non-symmetric" staggering (reference:
 src/framework/MOM_memory_macros.h and src/core/MOM_grid.F90:30-140) with the
 halo machinery deleted: every shift is a circular roll and solid walls are
 enforced by multiplying with face masks.  On a sharded axis XLA lowers
-``jnp.roll``/shift-by-one to a ``CollectivePermute`` over ICI, which *is* the
-halo exchange — there is no separate halo bookkeeping anywhere in the model.
+``jnp.roll``/shift-by-one to a ``CollectivePermute`` between neighbouring
+devices, which *is* the halo exchange — there is no separate halo
+bookkeeping anywhere in the model.
 
 Reference parity: pass_var/pass_vector of MOM_domains.F90:33-61 become no-ops
 (GSPMD), directional/corner-omitting variants are unnecessary, and the

@@ -1,6 +1,6 @@
 """Horizontal ocean grid container.
 
-TPU-native analogue of MOM6's ``ocean_grid_type`` (reference:
+Analogue of MOM6's ``ocean_grid_type`` (reference:
 src/core/MOM_grid.F90:30-140) with the halo/index bookkeeping deleted:
 all metric arrays are dense ``(ny, nx)`` global arrays in the non-symmetric
 staggering of framework/stencil.py (u at EAST faces, v at NORTH faces,

@@ -1,6 +1,6 @@
 """Native (C++) host-runtime kernels, loaded via ctypes.
 
-The TPU compute path is jax/XLA; this package is the native half of the
+The device compute path is jax/XLA; this package is the native half of the
 host runtime — the per-segment CPU work the reference does in
 Fortran/FMS (reproducing sums for ocean.stats, checksum fingerprints).
 See ``src/mom6_native.cc`` for the kernel inventory and reference

@@ -1,6 +1,6 @@
 // Native host-runtime kernels for mom6_tpu.
 //
-// The TPU compute path is jax/XLA; this library covers the HOST side of
+// The device compute path is jax/XLA; this library covers the HOST side of
 // the framework the way the reference's Fortran/FMS layer does — the
 // pieces that run per diagnostics segment on the CPU and are hot enough
 // to matter at scale (large grids pulled back for ocean.stats and

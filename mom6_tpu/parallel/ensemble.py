@@ -5,10 +5,10 @@ src/framework/MOM_ensemble_manager.F90; solo driver ensembles at
 MOM_driver.F90:685; used by the ODA subsystem, SURVEY.md §2.11/§2.14.6):
 N model replicas advanced together.
 
-TPU-native design: the ensemble is a leading axis of the state pytree,
+Design: the ensemble is a leading axis of the state pytree,
 stepped with ``jax.vmap`` — one compiled program advances every member —
 and optionally sharded over its own mesh axis ('e') so members scale
-across chips independently of the spatial decomposition.
+across devices independently of the spatial decomposition.
 """
 
 from __future__ import annotations

@@ -1,15 +1,20 @@
 """Device mesh and sharding rules.
 
-The TPU-native replacement for MOM6's 2-D MPI domain decomposition
-(reference: src/framework/MOM_domains.F90:33-61 and SURVEY.md §2.14):
-the (y, x) horizontal plane is GSPMD-sharded over a
-``jax.sharding.Mesh(('y', 'x'))``; the vertical (k) axis, tracer count and
-ensemble axes stay device-local (SURVEY.md §5.7).  Halo exchanges are not
-explicit: every roll-by-one in framework/stencil.py lowers to a
-CollectivePermute over ICI under GSPMD.
+The replacement for MOM6's 2-D MPI domain decomposition (reference:
+src/framework/MOM_domains.F90:33-61 and SURVEY.md §2.14): the (y, x)
+horizontal plane is GSPMD-sharded over a ``jax.sharding.Mesh(('y', 'x'))``;
+the vertical (k) axis, tracer count and ensemble axes stay device-local
+(SURVEY.md §5.7).  Halo exchanges are not explicit: every roll-by-one in
+framework/stencil.py lowers to a CollectivePermute between neighbouring
+shards under GSPMD, and column solvers that need whole columns run per
+shard (framework/solvers.py).
+
+The mesh factoring is the algorithm's choice, not the interconnect's: the
+GPUs of one host are joined all to all, so ``_factor2d`` picks the most
+square layout, which minimises the halo perimeter per shard.
 
 Land-block elimination (MASKTABLE) has no analogue here — dense compute +
-masks is the right trade on TPU (SURVEY.md §7 "Masked/ragged domains").
+masks (SURVEY.md §7 "Masked/ragged domains").
 """
 
 from __future__ import annotations

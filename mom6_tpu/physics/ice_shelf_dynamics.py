@@ -1,6 +1,6 @@
 """Ice-shelf dynamics: the shallow-shelf approximation (SSA).
 
-TPU-native re-design of MOM6's ice sheet/shelf dynamics (reference:
+Re-design of MOM6's ice sheet/shelf dynamics (reference:
 src/ice_shelf/MOM_ice_shelf_dynamics.F90: ice_shelf_solve_outer :1427
 — Picard iteration on the Glen-law viscosity around a conjugate-gradient
 solve of the SSA momentum balance, velocities at B-grid corners;

@@ -1,6 +1,6 @@
 """Horizontal (lateral) viscosity: Laplacian + biharmonic friction.
 
-TPU-native re-design of MOM6's hor_visc (reference:
+Re-design of MOM6's hor_visc (reference:
 src/parameterizations/lateral/MOM_hor_visc.F90: horizontal_viscosity :266;
 scheme flags :41-78): the stress-tensor formulation on the C-grid with
 
@@ -11,7 +11,7 @@ scheme flags :41-78): the stress-tensor formulation on the C-grid with
 * biharmonic friction as the same stress operator applied to -del2(u),
 * a stability bound on the coefficients (hor_visc's Kh bounds).
 
-Everything is fused elementwise VPU work; the thickness-weighted stress
+Everything is fused elementwise work; the thickness-weighted stress
 divergence conserves momentum and vanishes on masked land."""
 
 from __future__ import annotations

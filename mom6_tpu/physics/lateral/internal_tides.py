@@ -1,6 +1,6 @@
 """Low-mode internal tide propagation (energy-density ray tracing).
 
-TPU-native re-design of MOM6's MOM_internal_tides.F90 (propagate_int_tide
+Re-design of MOM6's MOM_internal_tides.F90 (propagate_int_tide
 :236, refraction via propagate_corner/teleport machinery, itidal_lowmode
 losses): the internal-tide energy density En(angle, y, x) per vertical
 mode propagates horizontally at the group speed along a discretized set

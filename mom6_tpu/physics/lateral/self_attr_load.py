@@ -1,20 +1,21 @@
 """Self-attraction and loading (SAL) via spherical harmonics.
 
-TPU-native re-design of MOM6's harmonic SAL (reference:
+Re-design of MOM6's harmonic SAL (reference:
 src/parameterizations/lateral/MOM_self_attr_load.F90: calc_SAL, with
 calc_love_scaling :136 — eta_sal's degree-n coefficient is the sea level
 coefficient times  beta_n = (3 / (2n+1)) (rhoW / rhoE) (1 + k'_n - h'_n);
 the spherical harmonic machinery lives in MOM_spherical_harmonics.F90).
 
-Design: on TPU the whole transform is two matmuls + an FFT —
+Design: the whole transform is two matmuls + an FFT —
 
   1. rfft over longitude gives the zonal Fourier coefficients
      C_m(lat), S_m(lat) (the grid must be cyclic in x);
   2. per zonal wavenumber m, a precomputed weighted pseudo-inverse
      projects onto associated-Legendre columns (analysis), the diagonal
      Love scaling multiplies each degree, and the Legendre matrix
-     synthesizes back — one batched (m, n, lat) einsum each way, which
-     XLA maps straight onto the MXU;
+     synthesizes back — one batched (m, n, lat) einsum each way, at
+     full float32 precision (a matrix unit's reduced-precision default,
+     such as TF32, would keep only ~3 digits of the transform);
   3. inverse rfft restores longitude.
 
 Because analysis uses the exact discrete pseudo-inverse of the same
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -116,11 +118,12 @@ def calc_sal_harmonic(eta, sal: SALHarmonics):
     Fm = F[:, :M]                                        # (ny, M)
     re = jnp.real(Fm).T                                  # (M, ny)
     im = jnp.imag(Fm).T
-    # analysis -> Love scaling -> synthesis, batched over m on the MXU
-    c_re = jnp.einsum("mnj,mj->mn", sal.pinv, re) * sal.beta
-    c_im = jnp.einsum("mnj,mj->mn", sal.pinv, im) * sal.beta
-    g_re = jnp.einsum("mjn,mn->mj", sal.P, c_re)         # (M, ny)
-    g_im = jnp.einsum("mjn,mn->mj", sal.P, c_im)
+    # analysis -> Love scaling -> synthesis, batched over m
+    hi = jax.lax.Precision.HIGHEST
+    c_re = jnp.einsum("mnj,mj->mn", sal.pinv, re, precision=hi) * sal.beta
+    c_im = jnp.einsum("mnj,mj->mn", sal.pinv, im, precision=hi) * sal.beta
+    g_re = jnp.einsum("mjn,mn->mj", sal.P, c_re, precision=hi)  # (M, ny)
+    g_im = jnp.einsum("mjn,mn->mj", sal.P, c_im, precision=hi)
     Fout = (g_re + 1j * g_im).T                          # (ny, M)
     Ffull = jnp.zeros_like(F).at[:, :M].set(Fout)
     return jnp.fft.irfft(Ffull, n=nx, axis=-1).astype(eta.dtype)

@@ -1,6 +1,6 @@
 """Gent-McWilliams thickness diffusion (interface-height smoothing).
 
-TPU-native analogue of MOM6's thickness_diffuse (reference:
+Analogue of MOM6's thickness_diffuse (reference:
 src/parameterizations/lateral/MOM_thickness_diffuse.F90:134): the eddy
 bolus overturning is expressed as an interface streamfunction
 ``psi_k = Kgm * S_k`` (S_k = interface-height slope at the velocity

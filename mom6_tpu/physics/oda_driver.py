@@ -6,7 +6,7 @@ runs the (ENABLE_ECDA) EAKF, and hands increments to MOM_oda_incupd for
 ramped application inside the diabatic sequence
 (MOM_diabatic_driver.F90:1770-1870).
 
-TPU-native design: the ensemble is the leading axis of the state pytree
+Design: the ensemble is the leading axis of the state pytree
 (parallel/ensemble.py) — the "gather" is a reshape, on-device; the
 sequential-in-observations EAKF (physics/oda_eakf.py) runs as a lax.scan
 over the observation batch; the output is a per-member

@@ -19,7 +19,7 @@ independent obs):
        x_e += cov(x, y)/s * dy_e   (optionally localized).
 
 Everything is dense linear algebra over the (ne, n_state) block — two
-matvecs per observation, batched on the MXU.  Localization uses the
+matvecs per observation, at full float32 precision.  Localization uses the
 Gaspari-Cohn 5th-order piecewise rational function of grid distance.
 """
 
@@ -82,7 +82,8 @@ def eakf_update(ens, obs_idx, obs_val, obs_var,
         dy = (ybar_a - ybar) + (shrink - 1.0) * yp       # (ne,)
         # regression of the state on the obs-space perturbation
         xp = ens - jnp.mean(ens, axis=0, keepdims=True)  # (ne, n)
-        cov = yp @ xp / (ne - 1)                         # (n,)
+        cov = jnp.matmul(yp, xp, precision=jax.lax.Precision.HIGHEST
+                         ) / (ne - 1)                    # (n,)
         gain = cov / s
         if use_loc:
             d = jnp.sqrt(jnp.sum((coords - coords[idx]) ** 2, axis=-1))

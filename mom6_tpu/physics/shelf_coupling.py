@@ -1,6 +1,6 @@
 """Ice-shelf / ocean coupling: pressure, melt fluxes, and IC trimming.
 
-TPU-native analogue of the coupling half of MOM6's ice shelf (reference:
+Analogue of the coupling half of MOM6's ice shelf (reference:
 src/ice_shelf/MOM_ice_shelf.F90 — ``add_shelf_pressure`` at :1103,
 ``add_shelf_flux`` at :1135 — and the under-shelf initial-condition
 trimming of src/initialization/MOM_state_initialization.F90:1250

@@ -1,6 +1,6 @@
 """Kraus-Turner bulk mixed layer for layered (isopycnal) mode.
 
-TPU-native re-design of MOM6's refined bulk mixed layer (reference:
+Re-design of MOM6's refined bulk mixed layer (reference:
 src/parameterizations/vertical/MOM_bulk_mixed_layer.F90: bulkmixedlayer
 :168, convective_adjustment :846, find_starting_TKE :1435,
 mechanical_entrainment :1646, mixedlayer_detrain_2 :2456; physics per

@@ -1,6 +1,6 @@
 """Energetically-constrained planetary boundary layer (ePBL).
 
-TPU-native re-design of MOM6's energetic_PBL (reference:
+Re-design of MOM6's energetic_PBL (reference:
 src/parameterizations/vertical/MOM_energetic_PBL.F90, Reichl & Hallberg
 2018): the boundary-layer depth is set by an integrated TKE budget —
 mechanical energy input m* u*^3 (plus the n* fraction of convectively

@@ -1,6 +1,6 @@
 """Jackson-Hallberg-Legg shear-driven mixing (quantitative JHL).
 
-TPU-native implementation of MOM6's MOM_kappa_shear.F90 (Jackson,
+Implementation of MOM6's MOM_kappa_shear.F90 (Jackson,
 Hallberg & Legg 2008): kappa and the TKE Q co-evolve as the coupled
 steady column equations (the reference's non-Newton iteration path,
 MOM_kappa_shear.F90:1660-1820, find_kappa_tke), vectorized over all

@@ -1,6 +1,6 @@
 """Tidal mixing: internal-tide energy input and its vertical deposition.
 
-TPU-native re-design of MOM6's tidal mixing pair (reference:
+Re-design of MOM6's tidal mixing pair (reference:
 src/parameterizations/vertical/MOM_internal_tide_input.F90:147-170, :563
 for the TKE conversion E = min(0.5*kappa_h2_factor*rho0*kappa_itides*
 h2*U_tide^2*N_b, TKE_max), and

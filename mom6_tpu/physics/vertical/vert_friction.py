@@ -1,6 +1,6 @@
 """Implicit vertical viscosity (momentum diffusion) and surface/bottom stress.
 
-TPU-native analogue of MOM6's MOM_vert_friction (reference:
+Analogue of MOM6's MOM_vert_friction (reference:
 src/parameterizations/vertical/MOM_vert_friction.F90: vertvisc_coef :1357,
 vertvisc :557, vertvisc_remnant :1229): backward-Euler vertical diffusion of
 momentum as a batched tridiagonal solve per velocity column, with wind

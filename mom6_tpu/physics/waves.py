@@ -1,6 +1,6 @@
 """Surface wave interface: Stokes drift profiles and Langmuir mixing.
 
-TPU-native analogue of MOM6's wave interface (reference:
+Analogue of MOM6's wave interface (reference:
 src/user/MOM_wave_interface.F90):
 
 * ``WaveMethod`` family — LF17 (statistical wind-waves, Li & Fox-Kemper

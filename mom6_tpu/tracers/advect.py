@@ -1,6 +1,6 @@
 """Monotone directionally-split tracer advection.
 
-TPU-native re-design of MOM6's tracer advection (reference:
+Re-design of MOM6's tracer advection (reference:
 src/tracer/MOM_tracer_advect.F90: advect_tracer :53, advect_x :355,
 advect_y :748; schemes in MOM_tracer_advect_schemes.F90).
 

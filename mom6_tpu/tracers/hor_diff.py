@@ -8,7 +8,7 @@ tracers/hor_bnd_diffusion.py; step_mom picks per the config flags and
 applies the Visbeck/resolution/passivity KHTR scalings before calling
 here (core/mom.py).
 
-TPU design: fixed subcycle count from the diffusive CFL (static), tracer
+Design: fixed subcycle count from the diffusive CFL (static), tracer
 axis batched, flux form guarantees conservation."""
 
 from __future__ import annotations

@@ -89,8 +89,8 @@ def _mean_over_spans(tr, h, z_lo, z_hi):
 
     def I_at(z):
         # gather-free cumulative integral at depth z (same clip-sum
-        # form as ale/remapping.remap_columns_multi — gathers serialize
-        # on TPU): I(z) = sum_k h_k xi (a0 + a1 xi/2 + a2 xi^2/3) with
+        # form as ale/remapping.remap_columns_multi):
+        # I(z) = sum_k h_k xi (a0 + a1 xi/2 + a2 xi^2/3) with
         # xi = clip((z - z_k)/h_k, 0, 1)
         def body(acc, xs):
             a0_k, a1_k, a2_k, h_k, z_k = xs

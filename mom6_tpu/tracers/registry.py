@@ -5,7 +5,7 @@ src/tracer/MOM_tracer_registry.F90:997, MOM_tracer_types.F90): a central
 list of advected tracers with metadata, used by advection, diffusion,
 column physics, restarts and diagnostics.
 
-TPU design: the registered tracers live in one dict ``{name: (nz,ny,nx)}``
+Design: the registered tracers live in one dict ``{name: (nz,ny,nx)}``
 inside the model state; advection/diffusion operate on a single stacked
 (n_tracer, nz, ny, nx) array so every tracer shares one reconstruction
 (the tracer count is a batch dimension, SURVEY.md §5.7)."""

@@ -155,8 +155,10 @@ class TestTridiag:
 
 class TestPallasTridiag:
     def test_matches_scan_on_any_backend(self):
-        """On CPU this exercises the fallback path; on TPU the kernel."""
-        from mom6_tpu.framework.pallas_tridiag import tridiag_solve_opt
+        """The GPU kernel, run by the Pallas interpreter, gives the scan's
+        answer on a model-shaped (nz, ny, nx) batch."""
+        from mom6_tpu.framework.pallas_tridiag import tridiag_solve_kernel
+        from mom6_tpu.framework.solvers import _tridiag_scan
         rng = np.random.default_rng(7)
         nz, ny, nx = 10, 12, 20
         a = jnp.asarray(rng.uniform(0.1, 1.0, (nz, ny, nx)), jnp.float32
@@ -165,8 +167,8 @@ class TestPallasTridiag:
                         ).at[-1].set(0.0)
         b = 2.0 + a + c
         d = jnp.asarray(rng.standard_normal((nz, ny, nx)), jnp.float32)
-        x_ref = tridiag_solve(a, b, c, d)
-        x_opt = tridiag_solve_opt(a, b, c, d)
+        x_ref = _tridiag_scan(a, b, c, d)
+        x_opt = tridiag_solve_kernel(a, b, c, d, interpret=True)
         np.testing.assert_allclose(np.asarray(x_opt), np.asarray(x_ref),
                                    atol=1e-6)
 

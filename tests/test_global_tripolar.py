@@ -426,8 +426,7 @@ def test_fold_wired_internal_tides():
         put += 600.0 * (1.0 - p.q_local) * float((tke * a).sum())
     E1 = np.asarray(En, np.float64)
     assert np.isfinite(E1).all()
-    # involution symmetry at the ulp: on TPU the evolution is exactly
-    # invariant (verified on hardware); XLA:CPU contracts the upwind
+    # involution symmetry at the ulp: XLA:CPU contracts the upwind
     # flux (max*E + min*E_nb) into FMAs whose association differs
     # between mirrored operand orders, leaving ~1 ulp of O(1) energy.
     # Anything above a few ulps is a fold-wiring bug.

@@ -1,7 +1,7 @@
 """Closed ODA loop: twin experiment.
 
 The full cycle of MOM_oda_driver.F90:824 + MOM_oda_incupd.F90:849 on the
-TPU-native ensemble: perturbed ensemble -> forecast -> EAKF analysis of
+vmapped ensemble: perturbed ensemble -> forecast -> EAKF analysis of
 synthetic observations of a truth run -> ramped incremental application
 inside the diabatic sequence (Forcing.oda_inc) -> repeat.  Assimilation
 must demonstrably reduce the ensemble-mean error against the truth

@@ -1,12 +1,12 @@
 """Batch-dimension cost curve: full-physics step time vs registered
 passive-tracer count.
 
-On TPU the tracer registry stacks every registered tracer into one
+The tracer registry stacks every registered tracer into one
 (n_tr, nz, ny, nx) batch through the shared advection/diffusion
 machinery (reference: per-tracer loops in MOM_tracer_flow_control.F90),
 so the marginal cost of a tracer should be far below the cost of the
-first: the advective reconstruction is reused and the batch rides the
-VPU lanes.  This tool measures that curve (n_tr in {1, 8, 24}) on the
+first: the advective reconstruction is reused and the batch is one more
+array dimension.  This tool measures that curve (n_tr in {1, 8, 24}) on the
 full-physics benchmark case and writes tools/tracer_batch_results.json.
 
 Run on the real chip:  python tools/bench_tracer_batch.py

@@ -1,5 +1,5 @@
 """Pinpoint the global_half_deg DT_THERM blowup: step thermo cycles,
-print per-cycle extrema + their locations (run in the ambient TPU env).
+print per-cycle extrema + their locations.
 
 Usage: python tools/blowup_probe.py RUNDIR [N_CYCLES]
 """
